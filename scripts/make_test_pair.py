@@ -25,7 +25,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from fgoicp_tpu.io import load_cloud, write_ply  # noqa: E402
+from fgoicp.io import load_cloud, write_ply  # noqa: E402
 
 
 def biased_subsample(points: np.ndarray, fraction: float,

@@ -2,10 +2,9 @@
 
 The proxy backend evaluates bounds against P farthest-point target
 representatives; P trades per-node kernel cost (linear in P) against
-covering-radius slack (more node expansions).  Round 1-2 tuned P=4096
-when per-step DISPATCH dominated; the round-3 readback fusion shifted
-the balance to the kernel, and this sweep (round 4) measured the knee
-at P~512-1024 on every real workload — see BASELINE.md for the table.
+covering-radius slack (more node expansions); the engine default is
+P=1024.  Times from this sweep are device measurements: run it on the
+GPU.
 
     python scripts/proxy_sweep.py --workload scan_pair --sizes 4096 1024 512
 """
@@ -24,7 +23,7 @@ sys.path.insert(0, "scripts")
 
 
 def load(name):
-    from fgoicp_tpu.io import load_cloud
+    from fgoicp.io import load_cloud
     from profile_phases import load_workload
     data = "/root/reference/data"
     if name in ("bunny", "scan_pair", "dragon"):
@@ -58,8 +57,8 @@ def main():
     ap.add_argument("--runs", type=int, default=2)
     args = ap.parse_args()
 
-    from fgoicp_tpu.config import EngineConfig
-    from fgoicp_tpu.models.goicp import GoICP
+    from fgoicp.config import EngineConfig
+    from fgoicp.models.goicp import GoICP
 
     pct, pcs, mse, trim = load(args.workload)
     for p in args.sizes:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Cubes-evaluated/s scaling harness (BASELINE config 5).
+"""Cubes-evaluated/s scaling harness.
 
 Runs the pooled-sharded inner BnB over growing cube-axis meshes on a
 fixed synthetic workload and reports nodes/s and scaling efficiency.
-Run on a real pod slice for meaningful numbers:
+Run on several GPUs for meaningful numbers:
 
     python scripts/scaling_bench.py                 # all local devices
     python scripts/scaling_bench.py --max-devices 4
@@ -45,10 +45,10 @@ def main(argv=None) -> int:
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from fgoicp_tpu.ops import bounds as bounds_ops
-    from fgoicp_tpu.ops import geometry as geo
-    from fgoicp_tpu.parallel import bnb as pbnb
-    from fgoicp_tpu.parallel import sharding as psh
+    from fgoicp.ops import bounds as bounds_ops
+    from fgoicp.ops import geometry as geo
+    from fgoicp.parallel import bnb as pbnb
+    from fgoicp.parallel import sharding as psh
 
     devices = jax.devices()
     n_avail = len(devices)

@@ -55,8 +55,8 @@ def main():
     ap.add_argument("--seed", type=int, default=11)
     args = ap.parse_args()
 
-    from fgoicp_tpu.io import load_cloud
-    from fgoicp_tpu.models import serving
+    from fgoicp.io import load_cloud
+    from fgoicp.models import serving
 
     cloud = load_cloud(SKULL, 1.0, seed=0)
     rng = np.random.default_rng(args.seed)

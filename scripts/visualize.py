@@ -22,8 +22,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from fgoicp_tpu.config import Config                     # noqa: E402
-from fgoicp_tpu.io import load_cloud                     # noqa: E402
+from fgoicp.config import Config                     # noqa: E402
+from fgoicp.io import load_cloud                     # noqa: E402
 
 
 def render(pct, pcs, R, t, out_path, title=""):
@@ -103,7 +103,7 @@ def main(argv=None) -> int:
                      seed=cfg.engine.seed + 1)
 
     if args.run:
-        from fgoicp_tpu.models.goicp import GoICP
+        from fgoicp.models.goicp import GoICP
         model = GoICP(pct, pcs, lut_resolution=cfg.params.lut_resolution,
                       mse_threshold=cfg.params.mse_threshold,
                       engine=cfg.engine)

@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fgoicp_tpu.ops import bounds as bounds_ops
-from fgoicp_tpu.ops import coreset as coreset_ops
-from fgoicp_tpu.ops import distance_field as df_ops
-from fgoicp_tpu.ops import frontier as frontier_ops
-from fgoicp_tpu.ops import geometry as geo
-from fgoicp_tpu.ops import nn as nn_ops
+from fgoicp.ops import bounds as bounds_ops
+from fgoicp.ops import coreset as coreset_ops
+from fgoicp.ops import distance_field as df_ops
+from fgoicp.ops import frontier as frontier_ops
+from fgoicp.ops import geometry as geo
+from fgoicp.ops import nn as nn_ops
 
 
 @pytest.fixture(scope="module")
@@ -174,7 +174,7 @@ class TestBoundValidity:
                            [0.2, 0, 0], 0.1, trim_keep=keep)
         # Exact reference: recompute via the exact drop path.
         import jax.numpy as jnp
-        from fgoicp_tpu.ops import geometry as geo2
+        from fgoicp.ops import geometry as geo2
         R = geo2.quat_cube_to_matrix(
             jnp.asarray([[0.3, 0, 0]], jnp.float32))
         q = (jnp.einsum("grc,nc->gnr", R, jnp.asarray(pcs, jnp.float32))

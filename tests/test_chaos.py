@@ -14,8 +14,8 @@ import pytest
 
 from util import std_engine
 from test_distributed import _problem
-from fgoicp_tpu.parallel import chaos
-from fgoicp_tpu.parallel import distributed as dist
+from fgoicp.parallel import chaos
+from fgoicp.parallel import distributed as dist
 
 
 def _run_chaos_hosts(n_hosts, pct, pcs, seed, engine_kw):

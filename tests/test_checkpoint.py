@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 
 from util import std_engine
-from fgoicp_tpu.models.goicp import GoICP
-from fgoicp_tpu.utils import checkpoint as ckpt
+from fgoicp.models.goicp import GoICP
+from fgoicp.utils import checkpoint as ckpt
 
 
 def _pair(seed=0, n=150):

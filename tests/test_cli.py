@@ -6,8 +6,8 @@ import tomllib
 import numpy as np
 import pytest
 
-from fgoicp_tpu.io import write_ply, read_ply_vertices
-from fgoicp_tpu.__main__ import run as cli_run
+from fgoicp.io import write_ply, read_ply_vertices
+from fgoicp.__main__ import run as cli_run
 
 
 def _make_pair(tmp_path, n=200, seed=0):

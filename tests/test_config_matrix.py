@@ -67,7 +67,7 @@ COMBOS = [
 @pytest.mark.parametrize(
     "combo", COMBOS, ids=[c[0] for c in COMBOS])
 def test_matrix_same_certified_optimum(combo):
-    from fgoicp_tpu.models.goicp import GoICP
+    from fgoicp.models.goicp import GoICP
 
     label, outer, frontier, backend, coreset, trim = combo[:6]
     pool_update = combo[6] if len(combo) > 6 else "sort"

@@ -1,11 +1,12 @@
 """Tests for the 3D distance field (ops/distance_field.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fgoicp_tpu.ops import distance_field as df
-from fgoicp_tpu.ops import nn as nn_ops
+from fgoicp.ops import distance_field as df
+from fgoicp.ops import nn as nn_ops
 
 
 def _bounds(pts):
@@ -95,19 +96,39 @@ class TestChunkingAndBudget:
         np.testing.assert_allclose(np.asarray(a.values), np.asarray(vals),
                                    rtol=1e-5, atol=1e-6)
 
-    def test_pallas_minplus_matches_xla(self):
-        """The opt-in Pallas min-plus kernel (kept as a measured
-        experiment — it loses to the XLA form at production shape,
-        scripts/minplus_experiment.py) must stay value-equal."""
-        from fgoicp_tpu.ops import pallas_minplus
+    def test_minplus_matches_brute(self):
+        """The chunked 1D min-plus transform equals the O(n^2) definition
+        out[l, i] = min_j g[l, j] + ((i - j) * res)^2."""
         rng = np.random.default_rng(9)
         for (l, n) in [(5, 17), (40, 130)]:
-            g = jnp.asarray(rng.uniform(0, 4.0, size=(l, n)), jnp.float32)
+            g = rng.uniform(0, 4.0, size=(l, n)).astype(np.float32)
             res = 0.07
-            want = np.asarray(df._minplus_1d(g, res))
-            got = np.asarray(pallas_minplus.minplus_1d(g, res,
-                                                       interpret=True))
+            i = np.arange(n)
+            cost = ((i[None, :] - i[:, None]) * res) ** 2      # [j, i]
+            want = np.min(g[:, :, None] + cost[None], axis=1)
+            got = np.asarray(df._minplus_1d(jnp.asarray(g), res))
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+    def test_device_memory_budget(self, monkeypatch):
+        """The default budget is the GPU allocator's limit, the host's
+        memory on the CPU, and an error on a device that reports none."""
+        assert df.device_memory_budget() > 0   # the CPU test platform
+
+        class _Dev:
+            platform, device_kind = "gpu", "stand-in"
+
+            def __init__(self, stats):
+                self._stats = stats
+
+            def memory_stats(self):
+                return self._stats
+
+        monkeypatch.setattr(jax, "local_devices",
+                            lambda: [_Dev({"bytes_limit": 123})])
+        assert df.device_memory_budget() == 123
+        monkeypatch.setattr(jax, "local_devices", lambda: [_Dev({})])
+        with pytest.raises(RuntimeError, match="memory limit"):
+            df.device_memory_budget()
 
     def test_hbm_budget_guard_rejects_oversized_fields(self):
         # 2000^3 f32 = 32 GB storage: must be refused on a 16 GB budget
@@ -234,7 +255,7 @@ class TestSoundness:
     round-1 default configuration violated (slack never folded in)."""
 
     def test_edt_conservative_estimates_bracket_truth(self, cloud):
-        from fgoicp_tpu.ops import bounds as bounds_ops
+        from fgoicp.ops import bounds as bounds_ops
         res = 0.07
         field = df.build(cloud, _bounds(cloud), res, builder="edt")
         be = bounds_ops.make_backend(cloud, kind="lut", field=field)
@@ -253,7 +274,7 @@ class TestSoundness:
         box-excess distance (d_ub via Lipschitz, d_lb via the exact
         per-axis clamp split d(q)^2 >= d(q_c)^2 + exc^2).  Round-3 fix:
         the old absolute slack silently under-covered the ub side here."""
-        from fgoicp_tpu.ops import bounds as bounds_ops
+        from fgoicp.ops import bounds as bounds_ops
         res = 0.07
         field = df.build(cloud, _bounds(cloud), res, builder="edt")
         be = bounds_ops.make_backend(cloud, kind="lut", field=field)
@@ -271,7 +292,7 @@ class TestSoundness:
             df.lookup(field, q)).max())
 
     def test_bf16_field_slack_covers_quantization(self, cloud):
-        from fgoicp_tpu.ops import bounds as bounds_ops
+        from fgoicp.ops import bounds as bounds_ops
         res = 0.07
         field = df.build(cloud, _bounds(cloud), res, builder="brute",
                          dtype=jnp.bfloat16)
@@ -288,8 +309,8 @@ class TestSoundness:
     def test_lut_engine_bounds_bracket_true_sse(self, cloud):
         """Whole-pipeline property: node bounds from a default-config LUT
         engine bracket the exact SSE."""
-        from fgoicp_tpu.ops import bounds as bounds_ops
-        from fgoicp_tpu.ops import geometry as geo
+        from fgoicp.ops import bounds as bounds_ops
+        from fgoicp.ops import geometry as geo
         rng = np.random.default_rng(5)
         pcs = jnp.asarray(rng.uniform(-0.4, 0.4, size=(50, 3)), jnp.float32)
         field = df.build(cloud, _bounds(cloud), 0.07, builder="edt")

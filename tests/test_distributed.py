@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 
 from util import std_engine
-from fgoicp_tpu.models.goicp import GoICP
-from fgoicp_tpu.parallel import distributed as dist
+from fgoicp.models.goicp import GoICP
+from fgoicp.parallel import distributed as dist
 
 
 def test_partition_root_covers_and_disjoint():
@@ -248,8 +248,8 @@ def test_device_valve_is_relative_to_resume():
     checkpoints (so3_frontier.merge_states); a resumed device search
     whose merged counter already exceeds the absolute valve must still
     RUN (the valve is 10000 MORE steps, not a lifetime cap)."""
-    from fgoicp_tpu.models.goicp import GoICP
-    from fgoicp_tpu.ops import so3_frontier as so3
+    from fgoicp.models.goicp import GoICP
+    from fgoicp.ops import so3_frontier as so3
 
     pct, pcs, R_true, t_true = _problem(seed=3)
     eng = std_engine(outer_mode="device", so3_capacity=2048)

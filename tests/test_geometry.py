@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fgoicp_tpu.ops import geometry as geo
+from fgoicp.ops import geometry as geo
 
 
 def _random_unit_quat(rng):

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fgoicp_tpu.config import Config
+from fgoicp.config import Config
 from util import std_engine
-from fgoicp_tpu.models.goicp import GoICP, register
+from fgoicp.models.goicp import GoICP, register
 
 
 def _surface_cloud(rng, n, noise=0.01):
@@ -119,7 +119,7 @@ class TestGoICP:
         engaged (at least one outer prune; the trigger made a non-trivial
         decision).  Round-1 gap: the suite only exercised coarse spans +
         an always-on trigger, so a production-path bug was invisible."""
-        from fgoicp_tpu.config import EngineConfig
+        from fgoicp.config import EngineConfig
         pct, pcs, R_true, t_true = _make_problem(seed=9, angle=2.0, n=120)
         # Per-point noise on the source makes the optimum strictly
         # positive; with a threshold below the noise floor the gap can

@@ -1,5 +1,5 @@
-"""Golden end-to-end tests on the real reference datasets (BASELINE
-configs 1-4).  Skipped when /root/reference/data is absent.
+"""Golden end-to-end tests on the real reference datasets (bunny, skull,
+dragon, scan pairs).  Skipped when /root/reference/data is absent.
 
 The reference has no automated tests; its implicit check is ground-truth
 recovery of a known transform (scripts/transform_point_cloud.py, SURVEY
@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 
 from util import std_engine
-from fgoicp_tpu.io import load_cloud
-from fgoicp_tpu.models.goicp import GoICP
-from fgoicp_tpu.models.icp import icp_register
-from fgoicp_tpu.ops import geometry as geo
+from fgoicp.io import load_cloud
+from fgoicp.models.goicp import GoICP
+from fgoicp.models.icp import icp_register
+from fgoicp.ops import geometry as geo
 
 DATA = "/root/reference/data"
 BUNNY = f"{DATA}/bunny/model_bunny.txt"

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from fgoicp_tpu.models import icp as icp_model
-from fgoicp_tpu.ops import procrustes as proc
+from fgoicp.models import icp as icp_model
+from fgoicp.ops import procrustes as proc
 
 
 def _random_rotation(rng):
@@ -163,7 +163,7 @@ class TestSearchOnProxyInvariant:
         import sys
         sys.path.insert(0, "/root/repo/tests")
         from util import std_engine
-        from fgoicp_tpu.models.goicp import GoICP
+        from fgoicp.models.goicp import GoICP
         rng = np.random.default_rng(9)
         s = rng.uniform(0.0, 4.5, size=(200,))
         pct = np.stack([np.cos(s), 0.7 * np.sin(2 * s),
@@ -185,8 +185,8 @@ class TestSearchOnProxyInvariant:
 
 
 def test_auto_source_coreset_rule():
-    from fgoicp_tpu.config import EngineConfig
-    from fgoicp_tpu.models.goicp import GoICP
+    from fgoicp.config import EngineConfig
+    from fgoicp.models.goicp import GoICP
     rng = np.random.default_rng(10)
     # Small source: auto keeps clusters OFF.
     pct = rng.uniform(-1, 1, (300, 3)).astype(np.float32)

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from fgoicp_tpu.config import Config
-from fgoicp_tpu.io import load_cloud, read_ply_vertices, subsample_cloud, write_ply
+from fgoicp.config import Config
+from fgoicp.io import load_cloud, read_ply_vertices, subsample_cloud, write_ply
 
 
 class TestConfig:

@@ -3,8 +3,8 @@ degrades gracefully."""
 import numpy as np
 import pytest
 
-from fgoicp_tpu.native import build as nbuild
-from fgoicp_tpu.native import loader as nloader
+from fgoicp.native import build as nbuild
+from fgoicp.native import loader as nloader
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +25,7 @@ def test_txt_exact_match(lib, tmp_path):
             f.write(f"{row[0]:.9g} {row[1]:.9g} {row[2]:.9g}\n")
     native = nloader.load_txt(str(p))
     assert native is not None
-    from fgoicp_tpu.io import loader as pyloader
+    from fgoicp.io import loader as pyloader
     orig = pyloader._native_loader
     pyloader._native_loader = None
     try:
@@ -44,7 +44,7 @@ def test_txt_extra_columns_ignored(lib, tmp_path):
 
 
 def test_ply_matches_python_ascii_and_binary(lib, tmp_path):
-    from fgoicp_tpu.io import ply as plymod
+    from fgoicp.io import ply as plymod
     rng = np.random.default_rng(3)
     pts = rng.normal(size=(123, 3)).astype(np.float32)
     for binary in (True, False):
@@ -57,7 +57,7 @@ def test_ply_matches_python_ascii_and_binary(lib, tmp_path):
 
 
 def test_ply_extra_props_and_skipped_elements(lib, tmp_path):
-    from fgoicp_tpu.io import ply as plymod
+    from fgoicp.io import ply as plymod
     p = tmp_path / "x.ply"
     p.write_bytes(
         b"ply\nformat ascii 1.0\ncomment hi\n"
@@ -80,7 +80,7 @@ def test_ply_unsupported_falls_back(lib, tmp_path):
         b"property float x\nproperty float y\nproperty float z\n"
         b"end_header\n" + rec.tobytes())
     assert nloader.load_ply(str(p)) is None
-    from fgoicp_tpu.io import loader as io_loader
+    from fgoicp.io import loader as io_loader
     np.testing.assert_allclose(io_loader.load_cloud(str(p)),
                                [[1, 2, 3]])
 

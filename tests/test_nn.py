@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from fgoicp_tpu.ops import nn as nn_ops
+from fgoicp.ops import nn as nn_ops
 
 
 def _brute(queries, target):

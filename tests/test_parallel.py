@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fgoicp_tpu.models import icp as icp_model
-from fgoicp_tpu.ops import bounds as bounds_ops
-from fgoicp_tpu.ops import frontier as frontier_ops
-from fgoicp_tpu.ops import geometry as geo
-from fgoicp_tpu.parallel import bnb as pbnb
-from fgoicp_tpu.parallel import sharding as psh
+from fgoicp.models import icp as icp_model
+from fgoicp.ops import bounds as bounds_ops
+from fgoicp.ops import frontier as frontier_ops
+from fgoicp.ops import geometry as geo
+from fgoicp.parallel import bnb as pbnb
+from fgoicp.parallel import sharding as psh
 
 
 def _problem(seed=0, nt=131, ns=67, g=9):
@@ -54,8 +54,8 @@ def test_pooled_sharded_clusters_share_match_single_device(mesh_shape):
     features silently degraded on multi-chip runs)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from fgoicp_tpu.ops import coreset as coreset_ops
-    from fgoicp_tpu.ops import pool_frontier
+    from fgoicp.ops import coreset as coreset_ops
+    from fgoicp.ops import pool_frontier
     backend, _, pcs, R, spans, fix = _problem(seed=7, g=4)
     g = R.shape[0]
     clusters = coreset_ops.build_weighted(pcs, size=24, seed=7)
@@ -142,7 +142,7 @@ def test_goicp_on_mesh_pooled():
     import sys
     sys.path.insert(0, "/root/repo/tests")
     from util import std_engine
-    from fgoicp_tpu.models.goicp import GoICP
+    from fgoicp.models.goicp import GoICP
     rng = np.random.default_rng(11)
     s = rng.uniform(0.0, 4.5, size=(150,))
     pct = np.stack([np.cos(s), 0.7 * np.sin(2 * s),
@@ -170,7 +170,7 @@ def test_device_outer_points_sharded():
         pytest.skip("needs 8 devices")
     sys.path.insert(0, "/root/repo/tests")
     from util import std_engine
-    from fgoicp_tpu.models.goicp import GoICP
+    from fgoicp.models.goicp import GoICP
     rng = np.random.default_rng(21)
     s = rng.uniform(0.0, 4.5, size=(150,))
     pct = np.stack([np.cos(s), 0.7 * np.sin(2 * s),
@@ -202,13 +202,12 @@ def test_device_outer_cubes_sharded():
     """outer_mode='device' on a (cubes x points) mesh: the replicated
     SO(3) frontier with sliced child evaluation must explore the same
     outer octree as a single-device run with the scaled rotation batch
-    and reach the same certified optimum (VERDICT r2 missing #3: the
-    fastest mode and the scale-out story were mutually exclusive)."""
+    and reach the same certified optimum."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
     sys.path.insert(0, "/root/repo/tests")
     from util import std_engine
-    from fgoicp_tpu.models.goicp import GoICP
+    from fgoicp.models.goicp import GoICP
     rng = np.random.default_rng(23)
     s = rng.uniform(0.0, 4.5, size=(150,))
     pct = np.stack([np.cos(s), 0.7 * np.sin(2 * s),

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from fgoicp_tpu.io.ply import PlyError, read_ply_vertices, write_ply
+from fgoicp.io.ply import PlyError, read_ply_vertices, write_ply
 
 
 def _write(path, text=None, raw=None):

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fgoicp_tpu.ops import bounds as bounds_ops
-from fgoicp_tpu.ops import frontier as frontier_ops
-from fgoicp_tpu.ops import geometry as geo
-from fgoicp_tpu.ops import pool_frontier
+from fgoicp.ops import bounds as bounds_ops
+from fgoicp.ops import frontier as frontier_ops
+from fgoicp.ops import geometry as geo
+from fgoicp.ops import pool_frontier
 
 
 def _problem(seed=0, nt=131, ns=67, g=6):

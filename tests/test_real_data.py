@@ -16,8 +16,8 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_bunny_txt_counts_and_native_match():
-    from fgoicp_tpu.io import loader as pyloader
-    from fgoicp_tpu.native import loader as nloader
+    from fgoicp.io import loader as pyloader
+    from fgoicp.native import loader as nloader
     path = f"{DATA}/bunny/model_bunny.txt"
     with open(path) as f:
         declared = int(f.readline().split()[0])
@@ -34,8 +34,8 @@ def test_bunny_txt_counts_and_native_match():
 
 
 def test_skull_binary_ply_native_matches_python():
-    from fgoicp_tpu.io import ply as plymod
-    from fgoicp_tpu.native import loader as nloader
+    from fgoicp.io import ply as plymod
+    from fgoicp.native import loader as nloader
     path = f"{DATA}/artec3d/data_skull.ply"
     py = plymod.read_ply_vertices(path)
     assert len(py) == 98359  # header count
@@ -50,14 +50,14 @@ def test_skull_binary_ply_native_matches_python():
     ("dragon/dragonToes3_0.ply", 56525),
 ])
 def test_dragon_scans_parse(name, count):
-    from fgoicp_tpu.io import load_cloud
+    from fgoicp.io import load_cloud
     pts = load_cloud(f"{DATA}/{name}", 1.0, seed=0)
     assert len(pts) == count
     assert np.all(np.isfinite(pts))
 
 
 def test_seeded_subsample_deterministic_on_real_data():
-    from fgoicp_tpu.io import load_cloud
+    from fgoicp.io import load_cloud
     a = load_cloud(f"{DATA}/bunny/data_bunny.txt", 0.1, seed=3)
     b = load_cloud(f"{DATA}/bunny/data_bunny.txt", 0.1, seed=3)
     c = load_cloud(f"{DATA}/bunny/data_bunny.txt", 0.1, seed=4)

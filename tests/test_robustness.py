@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 
 from util import std_engine
-from fgoicp_tpu.models.goicp import GoICP
-from fgoicp_tpu.models.icp import icp_register
-from fgoicp_tpu.ops import procrustes as proc
-from fgoicp_tpu.io import loader
+from fgoicp.models.goicp import GoICP
+from fgoicp.models.icp import icp_register
+from fgoicp.ops import procrustes as proc
+from fgoicp.io import loader
 
 
 def test_rejects_bad_shapes():

@@ -5,9 +5,9 @@ import pytest
 
 from util import std_engine
 from test_checkpoint import _pair
-from fgoicp_tpu.models.goicp import GoICP
-from fgoicp_tpu.ops import so3_frontier as so3
-from fgoicp_tpu.utils import sanitize
+from fgoicp.models.goicp import GoICP
+from fgoicp.ops import so3_frontier as so3
+from fgoicp.utils import sanitize
 
 
 def test_clean_host_run_passes_with_checks_on():

@@ -3,8 +3,8 @@ certificates, GoICP parity, BnB fallback, and mesh sharding."""
 import numpy as np
 import pytest
 
-from fgoicp_tpu.models import serving
-from fgoicp_tpu.models.goicp import GoICP
+from fgoicp.models import serving
+from fgoicp.models.goicp import GoICP
 
 from util import std_engine
 
@@ -111,7 +111,7 @@ def test_mesh_sharded_matches_single(problem):
     the unsharded call (lockstep lanes are masked per-pair, so sharding
     cannot change any pair's trajectory)."""
     import jax
-    from fgoicp_tpu.parallel import sharding as psh
+    from fgoicp.parallel import sharding as psh
     pct, sources, _, _ = problem
     eng = std_engine(icp_multi_start=True)
     srv0 = serving.RegistrationService(pct, mse_threshold=1e-3, engine=eng)

@@ -1,12 +1,12 @@
 """Unit tests for the device SO(3) frontier's certificate arithmetic.
 
 End-to-end device-mode coverage lives in test_goicp.py / test_parallel.py;
-these pin the certified_gap edge cases (VERDICT r2 weak #7: the
-empty-frontier convention must be explicit, not sentinel arithmetic)."""
+these pin the certified_gap edge cases (the empty-frontier convention
+must be explicit, not sentinel arithmetic)."""
 import jax.numpy as jnp
 import numpy as np
 
-from fgoicp_tpu.ops import so3_frontier as so3
+from fgoicp.ops import so3_frontier as so3
 
 
 def _state(lbs0, dropped_lb, best_sse=1.0, cap=8, hist=4,

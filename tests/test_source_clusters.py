@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 
 from util import std_engine
-from fgoicp_tpu.models.goicp import GoICP
-from fgoicp_tpu.ops import bounds as bounds_ops
-from fgoicp_tpu.ops import coreset as coreset_ops
-from fgoicp_tpu.ops import geometry as geo
-from fgoicp_tpu.ops import nn as nn_ops
+from fgoicp.models.goicp import GoICP
+from fgoicp.ops import bounds as bounds_ops
+from fgoicp.ops import coreset as coreset_ops
+from fgoicp.ops import geometry as geo
+from fgoicp.ops import nn as nn_ops
 
 
 def _cloud(rng, n):

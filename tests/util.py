@@ -1,7 +1,7 @@
 """Shared test helpers: one standard engine config so every e2e test hits
 the same jit cache entries (CPU compiles of the frontier/ICP loops are
 the dominant suite cost)."""
-from fgoicp_tpu.config import EngineConfig
+from fgoicp.config import EngineConfig
 
 STD_ENGINE = dict(
     rotation_batch=2,
